@@ -36,14 +36,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
 def main():
     from scipy.spatial.transform import Rotation as R
 
+    from vloam.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from test_mesh_pipeline import _run_single_device, _scan_frames, mesh_cfg
-    from vloam_tpu.data import synthetic
-    from vloam_tpu.lidar.mapping import solve_mapping
-    from vloam_tpu.lidar.odometry import LaserOdometry
-    from vloam_tpu.lidar.scan_registration import register_scan
-    from vloam_tpu.lidar.voxel import voxel_downsample
-    from vloam_tpu.parallel.mesh_pipeline import mesh_solve_mapping
-    from vloam_tpu.parallel.sharded import data_mesh
+    from vloam.data import synthetic
+    from vloam.lidar.mapping import solve_mapping
+    from vloam.lidar.odometry import LaserOdometry
+    from vloam.lidar.scan_registration import register_scan
+    from vloam.lidar.voxel import voxel_downsample
+    from vloam.parallel.mesh_pipeline import mesh_solve_mapping
+    from vloam.parallel.sharded import data_mesh
 
     cfg = mesh_cfg()
     scans = _scan_frames(cfg, 6, seed=11)

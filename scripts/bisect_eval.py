@@ -1,7 +1,7 @@
 """Quick lidar-only accuracy check on cached synthetic frames (bisect aid).
 
 Runs the fused LOAM path over the same 100-frame drive as eval_synthetic.py
-(frames come from /tmp/vloam_synth_cache, so no generation cost) and prints
+(frames come from the checkout's .cache/synth, so no generation cost) and prints
 LO/MO ATE. Used to bisect accuracy regressions; not part of CI.
 """
 
@@ -16,12 +16,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import numpy as np
 
 from eval_synthetic import build_frames
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
-from vloam_tpu.pipeline import run_sequence_fused
+from vloam.config import kitti_hdl64
+from vloam.eval.kitti_metrics import kitti_metrics
+from vloam.pipeline import run_sequence_fused
+from vloam.runtime.cache import enable_compile_cache
 
 
 def main(n_frames=100):
+    enable_compile_cache()
     cfg = kitti_hdl64()
     calib, frames, gt = build_frames(n_frames, with_cam=False, cfg=cfg)
     t0 = time.time()

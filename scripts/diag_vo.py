@@ -16,13 +16,14 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.data import synthetic
-from vloam_tpu.vision import features
-from vloam_tpu.vision.depth_map import build_depth_grid, query_depth
-from vloam_tpu.vision.vo import solve_vo
+from vloam.runtime.cache import frame_cache_dir
+from vloam.config import kitti_hdl64
+from vloam.data import synthetic
+from vloam.vision import features
+from vloam.vision.depth_map import build_depth_grid, query_depth
+from vloam.vision.vo import solve_vo
 
-CACHE = Path("/tmp/vloam_synth_cache")
+CACHE = frame_cache_dir("synth")
 
 
 def load_frames(n):
@@ -54,7 +55,7 @@ def main(n_pairs=10):
             xy0, sc0, m0 = features.detect_keypoints(img0, vo_cfg)
             xy1, sc1, m1 = features.detect_keypoints(img1, vo_cfg)
             if vo_cfg.optical_flow_match:
-                from vloam_tpu.vision.optical_flow import lk_flow
+                from vloam.vision.optical_flow import lk_flow
 
                 xy1m, status = lk_flow(img0, img1, xy0, vo_cfg)
                 prev_uv, curr_uv, valid = xy0, xy1m, m0 & status
@@ -235,7 +236,7 @@ def error_anatomy(n_pairs=8):
         errs.append(solve_with(grid0))
 
         # gt-depth grid: raycast the true depth at each bucket center
-        from vloam_tpu.vision.depth_map import DepthGrid
+        from vloam.vision.depth_map import DepthGrid
         g = grid0
         u = np.asarray(g.u).ravel(); v = np.asarray(g.v).ravel()
         cnt = np.asarray(g.cnt).ravel()

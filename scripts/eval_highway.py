@@ -27,29 +27,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.data import synthetic
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
-from vloam_tpu.pipeline import run_sequence_fused
+from vloam.runtime.cache import enable_compile_cache, frame_cache_dir
+from vloam.config import kitti_hdl64
+from vloam.data import synthetic
+from vloam.eval.kitti_metrics import kitti_metrics
+from vloam.pipeline import run_sequence_fused
 
-CACHE = Path("/tmp/vloam_synth_cache")
+CACHE = frame_cache_dir("synth")
 SPEED = 3.2  # ~highway inter-frame motion (eval_synthetic drives 1.2)
 
 
 def build_frames(n_frames, cfg):
     scene = synthetic.highway_scene(0)
-    K, P_rect0, cam_T_velo, velo_T_cam = synthetic.default_cam_calib(
+    K, _, _, velo_T_cam = synthetic.default_cam_calib(
         cfg.vo.img_width, cfg.vo.img_height)
-
-    class C:
-        pass
-
-    calib = C()
-    calib.K = K
-    calib.P_rect0 = P_rect0
-    calib.P_velo_to_img = P_rect0 @ np.linalg.inv(velo_T_cam)
-    calib.imu_T_velo = np.eye(4)
-    calib.imu_T_cam0 = velo_T_cam
+    calib = synthetic.synthetic_calib(cfg.vo.img_width, cfg.vo.img_height)
     poses = synthetic.drive_trajectory(n_frames, speed=SPEED,
                                        yaw_rate=0.0015)
     CACHE.mkdir(exist_ok=True)
@@ -77,19 +69,8 @@ def build_frames(n_frames, cfg):
     return calib, frames, gt
 
 
-def _cache():
-    import os
-
-    import jax
-
-    d = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/vloam_jax_cache")
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
 def main(n_frames=80):
-    _cache()
+    enable_compile_cache()
     base = kitti_hdl64()
     calib, frames, gt = build_frames(n_frames, base)
     rows = []

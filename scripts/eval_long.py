@@ -14,24 +14,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.data import synthetic
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
-from vloam_tpu.lidar.loam_step import LoamEngine, unpack_outputs
-from vloam_tpu.runtime.profiling import fence
+from vloam.runtime.cache import enable_compile_cache, frame_cache_dir
+from vloam.config import kitti_hdl64
+from vloam.data import synthetic
+from vloam.eval.kitti_metrics import kitti_metrics
+from vloam.lidar.loam_step import LoamEngine, unpack_outputs
+from vloam.runtime.profiling import fence
 
-CACHE = Path("/tmp/vloam_long_cache")
-
-
-def _enable_compile_cache():
-    import os
-
-    import jax
-
-    d = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/vloam_jax_cache")
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+CACHE = frame_cache_dir("long")
 
 
 def build_frames(n_frames):
@@ -86,7 +76,7 @@ def build_frames(n_frames):
 
 
 def main(n_frames=500):
-    _enable_compile_cache()
+    enable_compile_cache()
     cfg = kitti_hdl64()
     frames, gt = build_frames(n_frames)
 
@@ -106,7 +96,7 @@ def main(n_frames=500):
     assert np.isfinite(raw["t_w_lo"]).all(), "NaN in LO trajectory"
     dist = np.linalg.norm(np.diff(gt[:, :, 3], axis=0), axis=1).sum()
     crossings = int(dist // cfg.mapping.cube_size)
-    from vloam_tpu.geometry.np_pose import qt_to_T
+    from vloam.geometry.np_pose import qt_to_T
 
     mo = qt_to_T(raw["q_w_mo"], raw["t_w_mo"])[:, :3, :]
     lo = qt_to_T(raw["q_w_lo"], raw["t_w_lo"])[:, :3, :]

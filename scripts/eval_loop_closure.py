@@ -11,29 +11,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from vloam_tpu.backend.loop_closure import close_loops
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.data import synthetic
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
-from vloam_tpu.geometry.np_pose import inv_T, qt_to_T
-from vloam_tpu.lidar.loam_step import LoamEngine, unpack_outputs
+from vloam.runtime.cache import enable_compile_cache, frame_cache_dir
+from vloam.backend.loop_closure import close_loops
+from vloam.config import kitti_hdl64
+from vloam.data import synthetic
+from vloam.eval.kitti_metrics import kitti_metrics
+from vloam.geometry.np_pose import inv_T, qt_to_T
+from vloam.lidar.loam_step import LoamEngine, unpack_outputs
 
-CACHE = Path("/tmp/vloam_loop_cache")
-
-
-def _enable_compile_cache():
-    import os
-
-    import jax
-
-    d = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/vloam_jax_cache")
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+CACHE = frame_cache_dir("loop")
 
 
 def main(n_frames=320):
-    _enable_compile_cache()
+    enable_compile_cache()
     cfg = kitti_hdl64()
     # closed circle: comes back to the start (radius ~ speed/yaw ~ 51 m)
     yaw = 2.0 * np.pi / n_frames

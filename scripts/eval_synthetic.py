@@ -12,30 +12,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.data import synthetic
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
-from vloam_tpu.pipeline import run_sequence_fused
+from vloam.runtime.cache import enable_compile_cache, frame_cache_dir
+from vloam.config import kitti_hdl64
+from vloam.data import synthetic
+from vloam.eval.kitti_metrics import kitti_metrics
+from vloam.pipeline import run_sequence_fused
 
 
-CACHE = Path("/tmp/vloam_synth_cache")
+CACHE = frame_cache_dir("synth")
 
 
 def build_frames(n_frames, with_cam, cfg, with_polar=False):
     scene = synthetic.urban_scene(0, extent=160.0, n_boxes=36, n_poles=48,
                                   scatter=24)
-    K, P_rect0, cam_T_velo, velo_T_cam = synthetic.default_cam_calib(
+    K, _, _, velo_T_cam = synthetic.default_cam_calib(
         cfg.vo.img_width, cfg.vo.img_height)
-
-    class C:
-        pass
-
-    calib = C()
-    calib.K = K
-    calib.P_rect0 = P_rect0
-    calib.P_velo_to_img = P_rect0 @ np.linalg.inv(velo_T_cam)
-    calib.imu_T_velo = np.eye(4)
-    calib.imu_T_cam0 = velo_T_cam
+    calib = synthetic.synthetic_calib(cfg.vo.img_width, cfg.vo.img_height)
     # S-curve staying on the street (real drives follow roads); both turn
     # directions exercised, |heading| <= ~0.15 rad
     k = np.arange(n_frames)
@@ -86,19 +78,8 @@ def build_frames(n_frames, with_cam, cfg, with_polar=False):
     return calib, frames, gt
 
 
-def _enable_compile_cache():
-    import os
-
-    import jax
-
-    d = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/vloam_jax_cache")
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
 def main(n_frames=100):
-    _enable_compile_cache()
+    enable_compile_cache()
     results = {}
     golden_dir = Path(__file__).resolve().parents[1] / "tests" / "golden"
     golden_dir.mkdir(exist_ok=True)
@@ -180,12 +161,11 @@ def main(n_frames=100):
         head.append(f"| {key} | {m['t_rel_percent']:.3f} | "
                     f"{m['r_deg_per_m']:.4f} | {m['ate_rmse_m']:.3f} | "
                     f"{fps:.1f} |\n")
-    head.append("\nfps = end-to-end second run on the single real TPU chip "
-                "(engine re-created, compile cached): includes host staging, "
-                "upload, device compute, download, f64 export. The headline "
-                "steady-state device rate is bench.py's (see BENCH_r*.json); "
-                "first-run numbers incl. compile are printed in the eval "
-                "log.\n")
+    head.append("\nfps = end-to-end second run on one device (engine "
+                "re-created, compile cached): includes host staging, upload, "
+                "device compute, download, f64 export. The headline "
+                "steady-state device rate is bench.py's; first-run numbers "
+                "incl. compile are printed in the eval log.\n")
     # PRESERVE every other section: this script owns only the text before
     # the first "## " heading. A whole-file overwrite here is exactly how
     # round 3 silently lost the loop-closure / long-drive / batch tables

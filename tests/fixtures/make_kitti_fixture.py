@@ -20,8 +20,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-from vloam_tpu.config import tiny_test_profile  # noqa: E402
-from vloam_tpu.data import synthetic  # noqa: E402
+from vloam.config import tiny_test_profile  # noqa: E402
+from vloam.data import synthetic  # noqa: E402
 
 N_FRAMES = 5
 N_AZIMUTH = 360

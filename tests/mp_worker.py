@@ -26,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_sharded_mapping import _problem  # noqa: E402
-from vloam_tpu.parallel.sharded_mapping import sharded_map_alignment  # noqa: E402
+from vloam.parallel.sharded_mapping import sharded_map_alignment  # noqa: E402
 
 rng = np.random.default_rng(16833)
 cfg, map_corner, map_surf, c_stack, s_stack, q_true, t_true = _problem(rng)

@@ -1,7 +1,7 @@
 import numpy as np
 
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar.loam_step import (BatchLoamEngine, LoamEngine,
+from vloam.data import synthetic
+from vloam.lidar.loam_step import (BatchLoamEngine, LoamEngine,
                                        unpack_outputs)
 
 from test_pipeline import small_cfg

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vloam_tpu.config import kitti_hdl64
-from vloam_tpu.lidar import batch_mapping as bm
-from vloam_tpu.lidar.gridmap import (FeatureGrid, grid_create, grid_evict,
+from vloam.config import kitti_hdl64
+from vloam.lidar import batch_mapping as bm
+from vloam.lidar.gridmap import (FeatureGrid, grid_create, grid_evict,
                                      grid_gather, grid_insert)
-from vloam_tpu.lidar.mapping import GridMap, solve_mapping
+from vloam.lidar.mapping import GridMap, solve_mapping
 
 
 def small_map_cfg():

@@ -2,7 +2,7 @@ import numpy as np
 import cv2
 import jax.numpy as jnp
 
-from vloam_tpu.vision import features
+from vloam.vision import features
 
 from test_vision import CFG, make_frame
 
@@ -37,8 +37,8 @@ def test_bucket_nms_caps_counts():
 
 
 def test_export_map_points():
-    from vloam_tpu.config import tiny_test_profile
-    from vloam_tpu.lidar.mapping import GridMap, export_map_points
+    from vloam.config import tiny_test_profile
+    from vloam.lidar.mapping import GridMap, export_map_points
 
     cfg = tiny_test_profile().mapping
     gm = GridMap.create(cfg)

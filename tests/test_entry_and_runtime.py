@@ -26,7 +26,7 @@ def test_graft_dryrun_multichip():
 
 
 def test_native_io_roundtrip():
-    from vloam_tpu.runtime.native_io import PrefetchLoader, load_bin_native
+    from vloam.runtime.native_io import PrefetchLoader, load_bin_native
 
     d = tempfile.mkdtemp()
     paths = []
@@ -50,7 +50,7 @@ def test_native_io_roundtrip():
 
 
 def test_kitti_io_roundtrip(tmp_path):
-    from vloam_tpu.data.kitti import (KittiOdometrySequence,
+    from vloam.data.kitti import (KittiOdometrySequence,
                                       load_velodyne_bin)
 
     seq_dir = tmp_path / "sequences" / "00"
@@ -70,7 +70,7 @@ def test_kitti_io_roundtrip(tmp_path):
 
 
 def test_cli_synthetic_run(tmp_path, capsys):
-    from vloam_tpu.cli import main
+    from vloam.cli import main
 
     # tiny run: 3 frames, lidar-only to keep it quick
     rc = main(["run", "--synthetic", "3", "--mode", "lidar-only",
@@ -88,8 +88,8 @@ def test_native_polar_projection_roundtrip(tmp_path):
     project synthetic points, decode on device, ranges must match to the
     5 mm quantum and ring/azimuth assignment to the reference formulas."""
     import numpy as np
-    from vloam_tpu.data import synthetic
-    from vloam_tpu.runtime.native_io import (PolarPrefetchLoader,
+    from vloam.data import synthetic
+    from vloam.runtime.native_io import (PolarPrefetchLoader,
                                              project_polar_native)
 
     # synthesize points exactly on the decode ray grid
@@ -123,3 +123,63 @@ def test_native_polar_projection_roundtrip(tmp_path):
     assert cnt > 450
     np.testing.assert_array_equal(img2, img)
     ld.close()
+
+
+def test_compile_cache_dir_honours_env_else_fixed_checkout_path(monkeypatch):
+    from vloam.runtime import cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/some/where")
+    assert cache.compile_cache_dir() == "/some/where"
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    first = cache.compile_cache_dir()
+    assert first == cache.compile_cache_dir()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert first == os.path.join(repo, ".jax_cache")
+
+
+def test_chip_smoke_requires_a_gpu():
+    import chip_smoke
+
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        chip_smoke.require_gpu()
+
+
+def test_bench_peak_table_rejects_unknown_device():
+    import bench
+
+    assert bench.device_peaks("NVIDIA H100 80GB HBM3")["fp32_flops"] == 67e12
+    with pytest.raises(KeyError, match="no published peaks"):
+        bench.device_peaks("cpu")
+
+
+def _alias_package():
+    """The package beside vloam that keeps the package's earlier name."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = [n for n in os.listdir(root) if n.startswith("vloam_")
+             and os.path.exists(os.path.join(root, n, "__init__.py"))]
+    assert len(names) == 1, names
+    return names[0]
+
+
+def test_alias_package_resolves_to_the_vloam_modules():
+    import importlib
+
+    import vloam.lidar.ring_assoc as ring_assoc
+
+    old = _alias_package()
+    mod = importlib.import_module(old + ".lidar.ring_assoc")
+    assert mod is ring_assoc
+    assert ring_assoc.__spec__.name == "vloam.lidar.ring_assoc"
+    assert importlib.import_module(old + ".config").PipelineConfig is (
+        importlib.import_module("vloam.config").PipelineConfig)
+
+
+def test_alias_package_runs_the_cli():
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", _alias_package(), "--help"],
+                         cwd=root, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    assert "run" in out.stdout and "eval" in out.stdout

@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.solver import factors
-from vloam_tpu.geometry import so3
+from vloam.solver import factors
+from vloam.geometry import so3
 
 
 def setup(rng, n=32):
@@ -88,10 +88,10 @@ def test_lo_with_distortion_flag_runs():
     """Smoke: solve_lo with cfg.distortion=True still recovers motion on
     synthetic scans (rel_time carried through the feature clouds)."""
     import dataclasses
-    from vloam_tpu.config import LaserOdometryConfig
-    from vloam_tpu.lidar.odometry import LaserOdometry
+    from vloam.config import LaserOdometryConfig
+    from vloam.lidar.odometry import LaserOdometry
     from test_laser_odometry import extract
-    from vloam_tpu.data import synthetic
+    from vloam.data import synthetic
 
     scene = synthetic.urban_scene(7)
     poses = synthetic.drive_trajectory(2, speed=0.5, yaw_rate=0.005)

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from vloam_tpu.geometry import Pose, so3
+from vloam.geometry import Pose, so3
 
 
 def random_quats(rng, n):

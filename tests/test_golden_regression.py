@@ -11,8 +11,8 @@ from pathlib import Path
 
 import numpy as np
 
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar.loam_step import LoamEngine, unpack_outputs
+from vloam.data import synthetic
+from vloam.lidar.loam_step import LoamEngine, unpack_outputs
 
 from test_pipeline import small_cfg
 

@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.config import LidarProfile, ScanRegistrationConfig, LaserOdometryConfig
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar import scan_registration as sr
-from vloam_tpu.lidar.odometry import LaserOdometry
+from vloam.config import LidarProfile, ScanRegistrationConfig, LaserOdometryConfig
+from vloam.data import synthetic
+from vloam.lidar import scan_registration as sr
+from vloam.lidar.odometry import LaserOdometry
 
 PROFILE = LidarProfile(name="t64", n_scans=64, minimum_range=2.0,
                        max_points=65536, ring_capacity=1024)

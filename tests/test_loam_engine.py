@@ -2,11 +2,11 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar.loam_step import LoamEngine, unpack_outputs
-from vloam_tpu.lidar.odometry import LaserOdometry
-from vloam_tpu.lidar.mapping import LaserMapping
-from vloam_tpu.lidar import scan_registration as sr
+from vloam.data import synthetic
+from vloam.lidar.loam_step import LoamEngine, unpack_outputs
+from vloam.lidar.odometry import LaserOdometry
+from vloam.lidar.mapping import LaserMapping
+from vloam.lidar import scan_registration as sr
 
 from test_pipeline import small_cfg
 

@@ -1,8 +1,8 @@
 import numpy as np
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.backend.loop_closure import close_loops, find_loop_candidates
-from vloam_tpu.data import synthetic
+from vloam.backend.loop_closure import close_loops, find_loop_candidates
+from vloam.data import synthetic
 
 from test_pipeline import small_cfg
 

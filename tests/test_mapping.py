@@ -2,14 +2,14 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.config import (LaserMappingConfig, LaserOdometryConfig,
+from vloam.config import (LaserMappingConfig, LaserOdometryConfig,
                               LidarProfile, ScanRegistrationConfig)
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar import scan_registration as sr
-from vloam_tpu.lidar.gridmap import (SENTINEL, grid_create, grid_evict,
+from vloam.data import synthetic
+from vloam.lidar import scan_registration as sr
+from vloam.lidar.gridmap import (SENTINEL, grid_create, grid_evict,
                                      grid_insert, grid_knn)
-from vloam_tpu.lidar.mapping import LaserMapping, _cube_coord
-from vloam_tpu.lidar.odometry import LaserOdometry
+from vloam.lidar.mapping import LaserMapping, _cube_coord
+from vloam.lidar.odometry import LaserOdometry
 
 PROFILE = LidarProfile(name="t64", n_scans=64, minimum_range=2.0,
                        max_points=65536, ring_capacity=1024)

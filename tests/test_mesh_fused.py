@@ -9,9 +9,9 @@ import jax
 import numpy as np
 import pytest
 
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar.loam_step import LoamEngine, unpack_outputs
-from vloam_tpu.parallel.sharded import data_mesh
+from vloam.data import synthetic
+from vloam.lidar.loam_step import LoamEngine, unpack_outputs
+from vloam.parallel.sharded import data_mesh
 
 from test_pipeline import small_cfg
 
@@ -70,7 +70,7 @@ def test_mesh_fused_loam_matches_single_device():
 def test_mesh_fused_vloam_matches_single_device(tmp_path):
     from test_pipeline import synth_setup
 
-    from vloam_tpu.vloam_step import VloamEngine, unpack_vloam_outputs
+    from vloam.vloam_step import VloamEngine, unpack_vloam_outputs
 
     n = 4
     calib, frames, gt = synth_setup(n, seed=3)
@@ -101,7 +101,7 @@ def test_cli_mesh_fused_engine(tmp_path):
     mapping chunk end-to-end on the KITTI-layout fixture."""
     from pathlib import Path
 
-    from vloam_tpu.cli import main
+    from vloam.cli import main
 
     fixture = Path(__file__).parent / "fixtures" / "kitti_mini"
     out = tmp_path / "mesh_fused"

@@ -7,17 +7,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vloam_tpu.config import (LaserMappingConfig, LidarProfile,
+from vloam.config import (LaserMappingConfig, LidarProfile,
                               PipelineConfig, ScanRegistrationConfig)
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar.mapping import LaserMapping, solve_mapping
-from vloam_tpu.lidar.odometry import LaserOdometry
-from vloam_tpu.lidar.scan_registration import register_scan
-from vloam_tpu.lidar.voxel import voxel_downsample
-from vloam_tpu.parallel.mesh_pipeline import (MeshLaserMapping,
+from vloam.data import synthetic
+from vloam.lidar.mapping import LaserMapping, solve_mapping
+from vloam.lidar.odometry import LaserOdometry
+from vloam.lidar.scan_registration import register_scan
+from vloam.lidar.voxel import voxel_downsample
+from vloam.parallel.mesh_pipeline import (MeshLaserMapping,
                                               mesh_solve_mapping,
                                               run_mesh_drive)
-from vloam_tpu.parallel.sharded import data_mesh
+from vloam.parallel.sharded import data_mesh
 
 
 def mesh_cfg():

@@ -7,7 +7,7 @@ import logging
 import numpy as np
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.geometry.np_pose import (cumulative_se3, inv_T, mat_cumprod,
+from vloam.geometry.np_pose import (cumulative_se3, inv_T, mat_cumprod,
                                         qt_to_T, quats_to_mats)
 
 
@@ -60,7 +60,7 @@ def test_unpack_outputs_vectorized_matches_loop_and_warns(caplog):
     """unpack_outputs recomposition == sequential scipy loop; degenerate
     frames (< 10 correspondences) trigger the 'less correspondence!'
     warning and are listed in lo_degraded."""
-    from vloam_tpu.lidar.loam_step import OUT_DIM, unpack_outputs
+    from vloam.lidar.loam_step import OUT_DIM, unpack_outputs
 
     rng = np.random.default_rng(3)
     n = 50
@@ -75,7 +75,7 @@ def test_unpack_outputs_vectorized_matches_loop_and_warns(caplog):
     outs[17, 22] = 3  # 5 < 10: degraded
     outs[0, 21] = 0
     outs[0, 22] = 0  # frame 0 never counts
-    with caplog.at_level(logging.WARNING, logger="vloam_tpu"):
+    with caplog.at_level(logging.WARNING, logger="vloam"):
         res = unpack_outputs(outs)
     assert list(res["lo_degraded"]) == [17]
     assert any("less correspondence" in r.message for r in caplog.records)

@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.parallel.pose_graph import (PoseGraph, build_odometry_graph,
+from vloam.parallel.pose_graph import (PoseGraph, build_odometry_graph,
                                            optimize_pose_graph)
-from vloam_tpu.parallel.sharded import (data_mesh, shard_batch,
+from vloam.parallel.sharded import (data_mesh, shard_batch,
                                         sharded_point_to_plane_gn)
 
 

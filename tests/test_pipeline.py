@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from vloam_tpu.config import (LaserMappingConfig, LidarProfile,
+from vloam.config import (LaserMappingConfig, LidarProfile,
                               PipelineConfig, ScanRegistrationConfig,
                               VisualOdometryConfig)
-from vloam_tpu.data import synthetic
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
-from vloam_tpu.pipeline import VloamPipeline, run_sequence
+from vloam.data import synthetic
+from vloam.eval.kitti_metrics import kitti_metrics
+from vloam.pipeline import VloamPipeline, run_sequence
 
 
 def small_cfg(**kw):
@@ -30,18 +30,9 @@ def small_cfg(**kw):
 def synth_setup(n_frames, seed=0, use_cam=True):
     scene = synthetic.urban_scene(seed)
     cfg0 = small_cfg()
-    K, P_rect0, cam_T_velo, velo_T_cam = synthetic.default_cam_calib(
+    K, _, _, velo_T_cam = synthetic.default_cam_calib(
         cfg0.vo.img_width, cfg0.vo.img_height)
-
-    class C:
-        pass
-
-    calib = C()
-    calib.K = K
-    calib.P_rect0 = P_rect0
-    calib.P_velo_to_img = P_rect0 @ np.linalg.inv(velo_T_cam)
-    calib.imu_T_velo = np.eye(4)
-    calib.imu_T_cam0 = velo_T_cam
+    calib = synthetic.synthetic_calib(cfg0.vo.img_width, cfg0.vo.img_height)
     poses = synthetic.drive_trajectory(n_frames, speed=1.0, yaw_rate=0.015)
 
     def frames():

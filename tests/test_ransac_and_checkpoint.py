@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.vision.ransac import estimate_essential_ransac
+from vloam.vision.ransac import estimate_essential_ransac
 
 
 def test_ransac_essential_recovers_pose(rng):
@@ -35,10 +35,10 @@ def test_ransac_essential_recovers_pose(rng):
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from vloam_tpu.config import kitti_hdl64
-    from vloam_tpu.lidar.loam_step import LoamState
-    from vloam_tpu.runtime.checkpoint import load_state, save_state
-    from vloam_tpu.config import tiny_test_profile
+    from vloam.config import kitti_hdl64
+    from vloam.lidar.loam_step import LoamState
+    from vloam.runtime.checkpoint import load_state, save_state
+    from vloam.config import tiny_test_profile
 
     cfg = tiny_test_profile()
     st = LoamState.create(cfg)

@@ -1,14 +1,13 @@
-"""Parity tests for the per-ring-min association kernel (ring_assoc.py):
-numpy brute force == XLA fallback == Pallas (interpret mode on CPU)."""
+"""Parity tests for the per-ring-min association (ring_assoc.py) against a
+numpy brute force."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from vloam_tpu.lidar.ring_assoc import (RingSlab, SENTINEL, ring_min2_pallas,
-                                        ring_min2_xla, ring_slab_assoc,
-                                        slab_from_flat)
+from vloam.lidar.ring_assoc import (RingSlab, SENTINEL, ring_min2_xla,
+                                   ring_slab_assoc, slab_from_flat)
 
 
 def _rand_slab(rng, S=8, C=64, live_frac=0.7):
@@ -48,19 +47,6 @@ def test_ring_min2_xla_matches_numpy():
     np.testing.assert_array_equal(np.asarray(a2), b2)
 
 
-def test_ring_min2_pallas_interpret_matches_xla():
-    rng = np.random.default_rng(1)
-    slab = _rand_slab(rng, S=8, C=128)
-    q = rng.uniform(-40, 40, (32, 3)).astype(np.float32)
-    slab_t = jnp.asarray(np.swapaxes(slab, 1, 2))
-    qj = jnp.asarray(q)
-    ref = ring_min2_xla(qj, slab_t)
-    got = ring_min2_pallas(qj, slab_t, q_tile=32, interpret=True)
-    for r, g in zip(ref, got):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=1e-5, atol=1e-4)
-
-
 def test_slab_from_flat_roundtrip():
     rng = np.random.default_rng(2)
     n, S, C = 200, 8, 64
@@ -78,23 +64,26 @@ def test_slab_from_flat_roundtrip():
         np.testing.assert_allclose(live, want, rtol=1e-6)
 
 
-def test_ring_slab_assoc_semantics():
+@pytest.mark.parametrize("impl", ["packed", "xla"])
+def test_ring_slab_assoc_semantics(impl):
     """d0/p0 = global nearest; d2/p2 = nearest on different nearby ring;
     d3/p3 = second nearest on the nearest's ring (surf mode). The default
-    (mxu) and packed impls saturate distances at 64 m^2 (above every consumer gate;
-    the LO gate is 25 m^2), so expected values clip the same way."""
+    (packed) impl saturates d0/d2 at 64 m^2 (above every consumer gate; the
+    LO gate is 25 m^2) and xla does not; the surf d3 path is packed for
+    both, so expected values clip the same way."""
     rng = np.random.default_rng(3)
     S, C = 8, 32
     slab_np = _rand_slab(rng, S=S, C=C)
     q = rng.uniform(-40, 40, (16, 3)).astype(np.float32)
     out = ring_slab_assoc(jnp.asarray(q), RingSlab(jnp.asarray(slab_np)),
-                          nearby_scan=2.5, mode="surf")
+                          nearby_scan=2.5, mode="surf", impl=impl)
     d = np.sum((q[None, :, None, :] - slab_np[:, None, :, :]) ** 2, axis=-1)
     m1 = d.min(axis=2)  # [S, Q]
     clip = lambda v: min(v, 64.0)
+    sat = clip if impl == "packed" else (lambda v: v)
     for i in range(len(q)):
         r0 = int(np.argmin(m1[:, i]))
-        assert np.isclose(float(out["d0"][i]), clip(m1[r0, i]), rtol=1e-4,
+        assert np.isclose(float(out["d0"][i]), sat(m1[r0, i]), rtol=1e-4,
                           atol=1e-3)
         if m1[r0, i] < 63.9:  # below saturation: argmin well-defined
             c0 = int(np.argmin(d[r0, i]))
@@ -103,7 +92,7 @@ def test_ring_slab_assoc_semantics():
         rings = np.arange(S)
         near = (np.abs(rings - r0) <= 2.5) & (rings != r0)
         want_d2 = np.where(near, m1[:, i], np.inf).min()
-        assert np.isclose(float(out["d2"][i]), clip(want_d2), rtol=1e-4,
+        assert np.isclose(float(out["d2"][i]), sat(want_d2), rtol=1e-4,
                           atol=1e-3)
         row = d[r0, i].copy()
         if m1[r0, i] < 63.9:
@@ -160,18 +149,8 @@ def test_assoc_matches_bruteforce_on_dense_cloud():
                                rtol=1e-4, atol=1e-3)
 
 
-def test_ring_min2_pallas_pads_non_tile_query_counts():
-    """Production sharp query count is 768 (sharp_cap), which is NOT a
-    multiple of the default q_tile=512 — the kernel must pad internally
-    and still match the XLA form (ADVICE r2)."""
-    rng = np.random.default_rng(5)
-    slab = _rand_slab(rng, S=8, C=128)
-    q = rng.uniform(-40, 40, (768, 3)).astype(np.float32)
-    slab_t = jnp.asarray(np.swapaxes(slab, 1, 2))
-    qj = jnp.asarray(q)
-    ref = ring_min2_xla(qj, slab_t)
-    got = ring_min2_pallas(qj, slab_t, q_tile=512, interpret=True)
-    assert got[0].shape == (8, 768)
-    for r, g in zip(ref, got):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=1e-5, atol=1e-4)
+def test_ring_slab_assoc_rejects_unknown_impl():
+    slab = RingSlab.empty(8, 16)
+    with pytest.raises(ValueError, match="unknown association impl"):
+        ring_slab_assoc(jnp.zeros((4, 3)), slab, nearby_scan=2.5,
+                        impl="pallas")

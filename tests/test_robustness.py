@@ -5,8 +5,8 @@ SURVEY.md §5)."""
 
 import numpy as np
 
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar.loam_step import LoamEngine, unpack_outputs
+from vloam.data import synthetic
+from vloam.lidar.loam_step import LoamEngine, unpack_outputs
 
 from test_pipeline import small_cfg
 
@@ -44,7 +44,7 @@ def test_engine_survives_degenerate_scans():
 def test_vision_survives_blank_and_saturated_images():
     import jax.numpy as jnp
 
-    from vloam_tpu.vision import features
+    from vloam.vision import features
 
     cfg = small_cfg().vo
     for img in (np.zeros((96, 320), np.float32),

@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vloam_tpu.config import LidarProfile, ScanRegistrationConfig
-from vloam_tpu.data import synthetic
-from vloam_tpu.lidar import scan_registration as sr
-from vloam_tpu.lidar.voxel import voxel_downsample
+from vloam.config import LidarProfile, ScanRegistrationConfig
+from vloam.data import synthetic
+from vloam.lidar import scan_registration as sr
+from vloam.lidar.voxel import voxel_downsample
 
 import np_loam
 
@@ -178,7 +178,7 @@ def test_ring_assignment_all_sensor_profiles(rng):
     """16/32/64-beam ring formulas vs the clean-room numpy reference
     (reference scan_registration.cpp:192-226; HDL-32/VLP-16 are the
     launch-variant profiles)."""
-    from vloam_tpu.config import HDL32, VLP16, HDL64_KITTI
+    from vloam.config import HDL32, VLP16, HDL64_KITTI
 
     pts = rng.uniform(-60, 60, (5000, 3)).astype(np.float32)
     for profile in (VLP16, HDL32, HDL64_KITTI):
@@ -200,9 +200,9 @@ def test_deskew_distortion_path():
     it matches the s=1 fast path."""
     import dataclasses
 
-    from vloam_tpu.config import kitti_hdl64
-    from vloam_tpu.data import synthetic
-    from vloam_tpu.lidar.odometry import solve_lo
+    from vloam.config import kitti_hdl64
+    from vloam.data import synthetic
+    from vloam.lidar.odometry import solve_lo
 
     cfg = kitti_hdl64()
     lo_d = dataclasses.replace(cfg.lo, distortion=True)
@@ -232,3 +232,60 @@ def test_deskew_distortion_path():
     t_ref_n = np.linalg.norm(np.asarray(t_ref))
     t_d_n = np.linalg.norm(np.asarray(t_d))
     assert 0.3 * t_ref_n < t_d_n < 3.0 * t_ref_n, (t_ref_n, t_d_n)
+
+
+def test_strict_selection_kernel_interpret_matches_xla_and_np():
+    """The Triton strict-selection kernel (interpret mode here; compiled on
+    a CUDA device) gives labels bit-identical to the vmapped XLA strict form
+    and to the sequential clean-room selection on a 64-ring frame."""
+    import jax
+
+    pts_all = make_scan(seed=5, n_az=720)
+    padded, n = synthetic.pad_scan(pts_all, TINY.max_points)
+    pts_r, _, counts = sr.scan_layout(jnp.asarray(padded), jnp.int32(n), TINY)
+    curv = sr._curvature(pts_r)
+    got, got_sel = sr._select_rings_kernel(pts_r, curv, counts, CFG,
+                                           interpret=True)
+    ref, ref_sel = jax.vmap(lambda p, c, k: sr._select_ring(p, c, k, CFG))(
+        pts_r, curv, counts)
+    got = np.asarray(got)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(np.asarray(got_sel), np.asarray(ref_sel))
+    assert got.shape == (64, TINY.ring_capacity)
+    assert {-1, 1, 2} <= set(np.unique(got).tolist())
+
+    pts_np = np.asarray(pts_r, np.float64)
+    curv_np = np.asarray(curv, np.float64)  # same ordering as the kernel
+    counts_np = np.asarray(counts)
+    for r in range(64):
+        cnt = int(counts_np[r])
+        if cnt < 17:
+            continue
+        want = np_loam.select_ring_np(pts_np[r], curv_np[r], cnt)
+        np.testing.assert_array_equal(got[r, :cnt], want[:cnt])
+
+
+def test_strict_selection_kernel_under_vmap_matches_xla():
+    """The batch runner vmaps scan registration over streams, which adds a
+    grid axis to the selection kernel's pallas_call: each stream's labels
+    must still equal the XLA strict form's."""
+    import jax
+
+    layouts = []
+    for seed in (6, 7):
+        padded, n = synthetic.pad_scan(make_scan(seed=seed, n_az=360),
+                                       TINY.max_points)
+        layouts.append(sr.scan_layout(jnp.asarray(padded), jnp.int32(n),
+                                      TINY))
+    pts_b = jnp.stack([p for p, _, _ in layouts])
+    cnt_b = jnp.stack([k for _, _, k in layouts])
+    curv_b = jax.vmap(sr._curvature)(pts_b)
+    got, got_sel = jax.vmap(lambda p, c, k: sr._select_rings_kernel(
+        p, c, k, CFG, interpret=True))(pts_b, curv_b, cnt_b)
+    for b in range(2):
+        ref, ref_sel = jax.vmap(lambda p, c, k: sr._select_ring(p, c, k, CFG))(
+            pts_b[b], curv_b[b], cnt_b[b])
+        np.testing.assert_array_equal(np.asarray(got[b]), np.asarray(ref))
+        np.testing.assert_array_equal(np.asarray(got_sel[b]),
+                                      np.asarray(ref_sel))
+    assert {-1, 1, 2} <= set(np.unique(np.asarray(got)).tolist())

@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.config import LaserMappingConfig
-from vloam_tpu.parallel.sharded import data_mesh, shard_batch
-from vloam_tpu.parallel.sharded_mapping import sharded_map_alignment
+from vloam.config import LaserMappingConfig
+from vloam.parallel.sharded import data_mesh, shard_batch
+from vloam.parallel.sharded_mapping import sharded_map_alignment
 
 
 def make_structured_world(rng, n_planes=8, n_lines=8, pts_per=400):

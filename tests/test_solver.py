@@ -2,9 +2,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vloam_tpu.solver import lm
-from vloam_tpu.solver.eig3 import eigvals_sym3, principal_eigenvector
-from vloam_tpu.lidar.knn import masked_knn, nearest_and_ring_constrained
+from vloam.solver import lm
+from vloam.solver.eig3 import eigvals_sym3, principal_eigenvector
+from vloam.lidar.knn import masked_knn, nearest_and_ring_constrained
 
 
 def test_huber_weight_cost():
@@ -17,7 +17,7 @@ def test_huber_weight_cost():
 
 def test_lm_converges_point_cloud_alignment(rng):
     """Recover a known rigid transform from noiseless 3D-3D pairs."""
-    from vloam_tpu.geometry import so3
+    from vloam.geometry import so3
 
     src = jnp.asarray(rng.uniform(-10, 10, (200, 3)), jnp.float32)
     q_true = so3.quat_from_axis_angle(jnp.asarray([0.03, -0.05, 0.1]))
@@ -48,7 +48,7 @@ def test_normal_equations_match_finite_diff(rng):
     dst = jnp.asarray(rng.normal(size=(16, 3)), jnp.float32)
 
     def fn(delta):
-        from vloam_tpu.geometry import so3
+        from vloam.geometry import so3
 
         return so3.rotate_axis_angle(jnp.broadcast_to(delta[:3], (16, 3)), src) + delta[3:] - dst
 
@@ -113,7 +113,3 @@ def test_ring_constrained_search(rng):
         m_same = (rr == r0[k]) & (np.arange(2000) != i0[k])
         want3 = np.min(np.where(m_same, D[k], np.inf))
         np.testing.assert_allclose(float(res["d3"][k]), want3, rtol=1e-4)
-
-
-# (the one-pass shortlist association was retired to scripts/legacy_assoc.py
-# in round 4 — superseded in production by ring_assoc.ring_slab_assoc)

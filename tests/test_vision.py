@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import cv2
 from scipy.spatial.transform import Rotation as R
 
-from vloam_tpu.config import VisualOdometryConfig
-from vloam_tpu.data import synthetic
-from vloam_tpu.vision import features
-from vloam_tpu.vision.depth_map import build_depth_grid, query_depth
-from vloam_tpu.vision.optical_flow import lk_flow
-from vloam_tpu.vision.vo import solve_vo
+from vloam.config import VisualOdometryConfig
+from vloam.data import synthetic
+from vloam.vision import features
+from vloam.vision.depth_map import build_depth_grid, query_depth
+from vloam.vision.optical_flow import lk_flow
+from vloam.vision.vo import solve_vo
 
 CFG = VisualOdometryConfig(img_width=320, img_height=96, max_keypoints=256,
                            max_matches=512)
@@ -97,7 +97,7 @@ def test_solve_vo_recovers_motion_synthetic_points(rng):
     # complex; instead exercise the solver directly with mixed families by
     # constructing an empty grid (all 2D-2D) plus translation scale from
     # a handful of 3D-2D constraints -> here: build a real grid from X0.
-    from vloam_tpu.vision.depth_map import DepthGrid
+    from vloam.vision.depth_map import DepthGrid
     import jax.numpy as jnp
 
     gw, gh = -(-320 // 5), -(-96 // 5)
@@ -199,22 +199,28 @@ def test_flann_and_nn_matcher_modes():
     assert bool(np.all(np.asarray(ok_n) == np.asarray(mask)))
 
 
-def test_pallas_descriptor_matches_xla_form():
-    """The Pallas ZNCC patch kernel (TPU production path) must match the
-    vmapped dynamic_slice XLA form; run here in interpret mode on CPU.
-    The only allowed deviation: sub-1e-3-contrast (degenerate) patches
-    yield a zero descriptor instead of normalized numerical noise."""
+def describe_zncc_np(img, xy, p):
+    """NumPy ZNCC reference: the p x p window at (x, y) - p//2, shifted to
+    lie inside the image, zero-mean and unit-norm."""
+    h, w = img.shape
+    out = []
+    for x, y in np.asarray(xy).astype(int):
+        y0 = min(max(y - p // 2, 0), h - p)
+        x0 = min(max(x - p // 2, 0), w - p)
+        patch = np.asarray(img, np.float64)[y0:y0 + p, x0:x0 + p].ravel()
+        patch = patch - patch.mean()
+        out.append(patch / max(np.linalg.norm(patch), 1e-6))
+    return np.stack(out)
+
+
+def test_zncc_gather_matches_numpy_including_borders():
     img, *_ = make_frame(5)
     im = jnp.asarray(img)
-    xy, score, mask = features.detect_keypoints(im, CFG)
-    base = np.asarray(features.describe_keypoints(im, xy, CFG))
-    p = CFG.descriptor_patch
-    assert im.shape[1] < 384  # the tiny profile exercises the XLA fallback
-    imp = jnp.pad(im, ((0, 0), (0, 384 - im.shape[1])), mode="edge")
-    base_p = np.asarray(features.describe_keypoints(imp, xy, CFG))
-    got = np.asarray(features._describe_zncc_pallas(imp, xy, p,
-                                                    interpret=True))
-    err = np.abs(base_p - got).max(axis=1)
-    live = np.asarray(mask) & (np.linalg.norm(base_p, axis=1) > 0.5)
-    assert live.sum() > 30
-    assert err[live].max() < 1e-4, err[live].max()
+    xy, _, _ = features.detect_keypoints(im, CFG)
+    h, w = im.shape
+    border = jnp.asarray([[0.0, 0.0], [w - 1.0, h - 1.0], [3.0, h - 2.0],
+                          [w - 5.0, 1.0]], jnp.float32)
+    xy = jnp.concatenate([xy, border])
+    got = np.asarray(features.describe_keypoints(im, xy, CFG))
+    want = describe_zncc_np(img, xy, CFG.descriptor_patch)
+    np.testing.assert_allclose(got, want, atol=1e-5)

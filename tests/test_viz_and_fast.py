@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vloam_tpu.config import VisualOdometryConfig
-from vloam_tpu.vision import features, viz
+from vloam.config import VisualOdometryConfig
+from vloam.vision import features, viz
 
 from test_vision import CFG, make_frame
 
@@ -33,7 +33,7 @@ def test_render_utilities(tmp_path):
     assert out.shape == (96, 640, 3)
     assert (tmp_path / "matches.png").exists()
 
-    from vloam_tpu.vision.depth_map import build_depth_grid
+    from vloam.vision.depth_map import build_depth_grid
 
     grid = build_depth_grid(jnp.asarray(pts), jnp.ones(len(pts), bool),
                             jnp.asarray(P_vi, jnp.float32), CFG)

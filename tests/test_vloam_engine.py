@@ -1,8 +1,8 @@
 import numpy as np
 
-from vloam_tpu.pipeline import run_sequence
-from vloam_tpu.vloam_step import VloamEngine, unpack_vloam_outputs
-from vloam_tpu.eval.kitti_metrics import kitti_metrics
+from vloam.pipeline import run_sequence
+from vloam.vloam_step import VloamEngine, unpack_vloam_outputs
+from vloam.eval.kitti_metrics import kitti_metrics
 
 from test_pipeline import small_cfg, synth_setup
 
@@ -38,23 +38,14 @@ def test_vloam_engine_matches_host_pipeline(tmp_path):
 def test_vloam_engine_polar_ingest():
     """push_polar (range-image upload, on-device decode for both depth
     grid and LOAM) tracks ground truth like the xyz path."""
-    from vloam_tpu.data import synthetic
+    from vloam.data import synthetic
 
     n = 4
     cfg = small_cfg(detach_VO_LO=False)
     scene = synthetic.urban_scene(2)
-    K, P_rect0, cam_T_velo, velo_T_cam = synthetic.default_cam_calib(
+    K, _, _, velo_T_cam = synthetic.default_cam_calib(
         cfg.vo.img_width, cfg.vo.img_height)
-
-    class C:
-        pass
-
-    calib = C()
-    calib.K = K
-    calib.P_rect0 = P_rect0
-    calib.P_velo_to_img = P_rect0 @ np.linalg.inv(velo_T_cam)
-    calib.imu_T_velo = np.eye(4)
-    calib.imu_T_cam0 = velo_T_cam
+    calib = synthetic.synthetic_calib(cfg.vo.img_width, cfg.vo.img_height)
     poses = synthetic.drive_trajectory(n, speed=1.0, yaw_rate=0.015)
     T0 = poses[0] @ velo_T_cam
     gt = np.stack([(np.linalg.inv(T0) @ (T @ velo_T_cam))[:3, :]
@@ -80,8 +71,8 @@ def test_engine_accepts_off_size_images():
     crops/zero-pads bottom-right (pixel coords and K stay valid)."""
     import numpy as np
 
-    from vloam_tpu.data import synthetic
-    from vloam_tpu.vloam_step import _fit_image
+    from vloam.data import synthetic
+    from vloam.vloam_step import _fit_image
 
     cfg = small_cfg(detach_VO_LO=False)
     vo = cfg.vo
@@ -151,9 +142,9 @@ def test_polar_fov_slice_preserves_depth_grid():
     contribute nothing after the projection bounds check)."""
     import jax.numpy as jnp
 
-    from vloam_tpu.data import synthetic
-    from vloam_tpu.lidar.loam_step import polar_to_xyz, polar_to_xyz_cols
-    from vloam_tpu.vision.depth_map import build_depth_grid
+    from vloam.data import synthetic
+    from vloam.lidar.loam_step import polar_to_xyz, polar_to_xyz_cols
+    from vloam.vision.depth_map import build_depth_grid
 
     cfg = small_cfg()
     scene = synthetic.urban_scene(2)

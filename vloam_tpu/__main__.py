@@ -1,4 +1,3 @@
-from .cli import main
+from vloam.cli import main
 
-if __name__ == "__main__":
-    raise SystemExit(main())
+raise SystemExit(main())
